@@ -1,4 +1,4 @@
-"""jpgenc_tpu — a TPU-native baseline-JPEG encode/decode engine.
+"""jpgenc_tpu — a baseline-JPEG encode/decode engine on JAX accelerators.
 
 Built from scratch in JAX/XLA/Pallas with the capability envelope of the
 reference project Nuos/jpgEnc (see SURVEY.md). Public API lives in

@@ -1,3 +1,3 @@
-from jpgenc_tpu.cli import main
+from jpgenc_tpu.cli import run
 
-raise SystemExit(main())
+raise SystemExit(run())

@@ -19,7 +19,7 @@ def encode(img, quality: int = 75, subsampling: str = "420",
            restart_interval: int = 0, optimize: bool = False,
            dct_method: str = "float") -> bytes:
     """Baseline JFIF encode of a [H,W] grayscale or [H,W,3] RGB uint8 image,
-    computed on the default JAX device (TPU when present).
+    computed on the default JAX device.
 
     img may be a numpy array (uploaded per call) or a device-resident
     jax.Array (no upload — the production shape when pixels are already in
@@ -27,7 +27,7 @@ def encode(img, quality: int = 75, subsampling: str = "420",
 
     dct_method='islow' selects the libjpeg-exact integer pipeline: the
     output file is byte-identical to libjpeg-turbo's at matched settings
-    (tests/test_islow_parity.py). 'float' (default) is the MXU throughput
+    (tests/test_islow_parity.py). 'float' (default) is the matmul throughput
     path — same PSNR/bpp envelope, different low-order coefficient
     rounding."""
     import jax
@@ -55,10 +55,10 @@ def encode(img, quality: int = 75, subsampling: str = "420",
     tiers = [t for i, t in enumerate(tiers) if t not in tiers[:i]]
     islow = cfg.dct_method == "islow"
     if cfg.optimize_huffman:
-        # pass 1 caches the SCAN-ORDERED zigzag tensor (Pallas K1 on TPU)
-        # and computes the symbol histogram in the same dispatch: neither
-        # pass pays the raster->scan gather, and pass 2 feeds the fused
-        # entropy kernels directly (SURVEY.md call stack 4.3)
+        # pass 1 caches the SCAN-ORDERED zigzag tensor and computes the
+        # symbol histogram in the same dispatch: neither pass pays the
+        # raster->scan gather, and pass 2 feeds the entropy stage directly
+        # (SURVEY.md call stack 4.3)
         zz, freq_dev = (plan.zz_islow_and_histogram(img, qt_dev) if islow
                         else plan.zz_and_histogram(img, qt_dev))
         freq = np.asarray(freq_dev)

@@ -204,5 +204,13 @@ def main(argv: list[str] | None = None) -> int:
     return args.fn(args)
 
 
+def run() -> int:
+    """Program entry (python -m jpgenc_tpu): persistent compile cache on,
+    then the command."""
+    from jpgenc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
+    return main()
+
+
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(run())

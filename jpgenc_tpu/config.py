@@ -20,10 +20,10 @@ class EncodeConfig:
     restart_interval: int = 0
     # two-pass encode with custom Huffman tables built from the symbol histogram.
     optimize_huffman: bool = False
-    # 'float': MXU-shaped float DCT (the throughput path, default);
+    # 'float': float DCT as one matmul (the throughput path, default);
     # 'islow': libjpeg-exact integer pipeline — output files are
     # byte-identical to libjpeg-turbo's at matched settings (the
-    # conformance mode; VPU integer math, no MXU).
+    # conformance mode; elementwise integer math, no matmul).
     dct_method: str = "float"
 
     def __post_init__(self):

@@ -2,13 +2,18 @@
 the role native code plays in production encoders; no pybind11 in this
 environment, so the library is a plain shared object built with g++).
 
-Builds lazily on first use and caches the .so next to the source; falls back
-cleanly (``LIB is None``) when no compiler is available so the pure-Python
-paths keep working.
+Builds lazily on first use from the committed source. The library's file
+name carries a hash of `scan_codec.cpp`, so a library built from other
+source (a stale build, or one copied from another machine) is never
+loaded; the library also exports `scan_codec_abi()`, which must equal
+`ABI_VERSION`. Falls back cleanly (``LIB is None``) when no compiler is
+available so the pure-Python paths keep working.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
+import hashlib
 import os
 import subprocess
 import tempfile
@@ -17,16 +22,24 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "scan_codec.cpp")
-_SO = os.path.join(_DIR, "libscan_codec.so")
+
+#: must match scan_codec_abi() in scan_codec.cpp; bump both on any change
+#: to an exported function's signature
+ABI_VERSION = 3
 
 LIB = None
 
 
-def _build() -> bool:
+def _so_path() -> str:
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_DIR, f"libscan_codec-{digest}.so")
+
+
+def _build(so: str) -> bool:
+    if os.path.exists(so):
+        return True
     try:
-        if (os.path.exists(_SO)
-                and os.path.getmtime(_SO) >= os.path.getmtime(_SRC)):
-            return True
         # build to a temp file then rename, so concurrent importers never
         # dlopen a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=_DIR)
@@ -37,7 +50,14 @@ def _build() -> bool:
         if r.returncode != 0:
             os.unlink(tmp)
             return False
-        os.replace(tmp, _SO)
+        os.replace(tmp, so)
+        # libraries of other source versions are never loaded again
+        for old in glob.glob(os.path.join(_DIR, "libscan_codec*.so")):
+            if old != so:
+                try:
+                    os.unlink(old)
+                except OSError:
+                    pass
         return True
     except (OSError, subprocess.SubprocessError):
         return False
@@ -55,16 +75,22 @@ def _load():
     try:
         return _load_inner()
     except OSError:
-        # e.g. a stale/foreign-architecture .so: fall back to pure Python
+        # e.g. a foreign-architecture .so: fall back to pure Python
         _LOAD_FAILED = True
         return None
 
 
 def _load_inner():
-    global LIB
-    if not _build():
+    global LIB, _LOAD_FAILED
+    so = _so_path()
+    if not _build(so):
         return None
-    lib = ctypes.CDLL(_SO)
+    lib = ctypes.CDLL(so)
+    lib.scan_codec_abi.restype = ctypes.c_int
+    lib.scan_codec_abi.argtypes = []
+    if lib.scan_codec_abi() != ABI_VERSION:
+        _LOAD_FAILED = True
+        return None
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")

@@ -30,8 +30,7 @@ class EntropyLUTs(NamedTuple):
     """Dense Huffman encode tables, one row per table id (0=luma, 1=chroma).
 
     Entries are packed (code << 5) | code_len (code <= 16 bits, len <= 5
-    bits) so every symbol costs one gather instead of two — data-dependent
-    index count is the dominant cost on TPU (docs/PERFORMANCE.md).
+    bits) so every symbol costs one gather instead of two.
     """
     dc: jnp.ndarray  # [2, 256] int32 packed
     ac: jnp.ndarray  # [2, 256] int32 packed
@@ -175,11 +174,8 @@ def symbol_histogram(zz_scan: jnp.ndarray, plan: SymbolPlan) -> jnp.ndarray:
     Formulated as a COMPARE-REDUCE over a dense 160-bin value-symbol domain
     (run 0..15 x ssss 1..10) instead of a scatter-add: XLA fuses the virtual
     [S*64, 160] equality broadcast into the reduction, so the data makes one
-    pass through the VPU with no data-dependent indices. Measured 4.5x
-    faster than the scatter formulation at 4K (147 -> 33 ms, 12.4M
-    positions; docs/PERFORMANCE.md — every data-dependent index costs ~10 ns
-    on this platform). Table-id split uses the difference trick: count
-    (bin & tab==0) and total(bin), table 1 = total - table 0.
+    pass with no data-dependent indices. Table-id split uses the difference
+    trick: count (bin & tab==0) and total(bin), table 1 = total - table 0.
     """
     a = analyze(zz_scan, plan)
     v = plan.valid

@@ -8,7 +8,7 @@ FrameLayout, so under jit the whole pixels->zigzag pipeline compiles to pad
 jccoefct dummy-DC chains. Bit-identical to ref/islow.py (tested), which is
 byte-identical to libjpeg-turbo (tests/test_islow_parity.py).
 
-The integer path trades the MXU (the float K1's home) for exactness — it is
+The integer path trades the matmul (the float K1's home) for exactness — it is
 the conformance mode, not the throughput mode.
 """
 from __future__ import annotations

@@ -80,21 +80,18 @@ def build_registers(piece_val: jnp.ndarray,
 def w_blk_for_quality(quality: int) -> int:
     """FIRST-tier per-block word capacity for the block-granular pack path.
 
-    Kernel A's merge and kernel B's span both scale with w_blk, so the first
-    tier is sized for typical photographic content (measured max ~123
-    bits/block at Q75 on the fixtures; 8 words = 256 bits is 2x headroom).
+    The pack's word merge and the segment merge's scatter taps both scale
+    with w_blk, so the first tier is sized for typical photographic content
+    (measured max ~123 bits/block at Q75 on the fixtures; 8 words = 256 bits
+    is 2x headroom).
     Overflow escalates through the capacity ladder (api.encode: 24-word safe
     tier, then the 56-word worst tier that covers MAX_BLOCK_BITS and can
     never overflow).
 
     Tiers are sized from per-block word statistics measured across a
-    smooth fixture, sigma-60 noise, hard edges and dense texture
-    (docs/PERFORMANCE.md round 4): worst content needs 10 words at Q85,
-    12 at Q90, 15 at Q95. Q81-90 therefore use 12 — legal since the
-    paired merge flushes partial chunks (r5), and measured FASTER than 16
-    in the link-free device-only A/B (Q90: w8 999 / w12 841 / w16 789
-    MPix/s, scripts/ab_hiq_w12.py — merge instruction count scales with
-    w_blk; w8 would overflow hard content at these qualities and cost a
+    smooth fixture, sigma-60 noise, hard edges and dense texture: worst
+    content needs 10 words at Q85, 12 at Q90, 15 at Q95. Q81-90 therefore
+    use 12 (w8 would overflow hard content at these qualities and cost a
     full ladder retry). Q91-95 use 16 (covers the 15-word worst case).
     Q96+ keep 24 (extreme-quality noise can exceed 16 words/block).
     Pathological content escalates through the ladder as before.
@@ -162,14 +159,11 @@ def segments_from_blocks(buf: jnp.ndarray, bits: jnp.ndarray,
 def walign_for(blocks_per_segment: int) -> int:
     """Static per-layout wcompact chunk width in words: segment starts in
     the compact stream are walign-word aligned, making the multi-segment
-    compaction a chunk ROW gather whose index count is cap_w/walign (cost
-    is per index, not per element on this platform — the wcompact was the
-    dominant high-Q DRI device cost). Bigger chunks halve the gather
-    indices but waste up to 4*walign-4 pad bytes per segment, so the
-    width scales with the segment size: measured Q95 DRI120 device-only
-    671 (8 words) -> 757 (16) -> 805 (32) -> 907 MPix/s (64), while a
-    DRI=4 file's 24-block segments stay on small chunks instead of
-    paying ~256 pad bytes against ~500 content bytes. The choice is a
+    compaction a chunk ROW gather whose index count is cap_w/walign.
+    Bigger chunks halve the gather indices but waste up to 4*walign-4 pad
+    bytes per segment, so the width scales with the segment size: a DRI=4
+    file's 24-block segments stay on small chunks instead of paying ~256
+    pad bytes against ~500 content bytes. The choice is a
     pure function of the layout, so every consumer of the stream (device
     compaction, host finalize, native C++ finalize, capacity and
     prefix-length computations) derives the same value."""
@@ -202,7 +196,7 @@ def wcompact_unstuffed(seg_words: jnp.ndarray, seg_bits: jnp.ndarray,
 
     Compared to the byte-level compact_unstuffed this removes the 4x
     byte-expansion entirely for the no-DRI case (a pure bswap of a static
-    word slice, ~0.4 ms/frame at 1080p on this chip) and cuts the
+    word slice) and cuts the
     restart-interval gather to a quarter of the indices (word- instead of
     byte-granular; segments start walign-chunk-aligned in the stream —
     the pad bytes are covered by scan_caps' per-segment slack).
@@ -238,8 +232,7 @@ def wcompact_unstuffed(seg_words: jnp.ndarray, seg_bits: jnp.ndarray,
     # in the compact stream (seg_nwords_aligned — the host finalize uses
     # the same offsets), so the compaction is a CHUNK row gather:
     # cap_w/walign data-dependent row indices instead of cap_w word
-    # indices. Measured 4.5 ms/frame -> ~0.2 on this chip at 1080p DRI=120
-    # (the per-index ~10 ns rule, docs/PERFORMANCE.md).
+    # indices.
     wshift = walign.bit_length() - 1
     nw = (nbits + 31) >> 5                            # content words
     nwa = seg_nwords_aligned(nbits, walign)

@@ -1,10 +1,10 @@
 """Device transform stage: level shift, 8x8 FDCT/IDCT, quantize, zigzag
 (SURVEY.md components #7, #8, #21; T.81 sections A.3.3, A.3.6).
 
-The FDCT is two 8x8 matmuls per block (`C @ X @ C.T`). In the jnp path these
-are einsums with HIGHEST precision so float32 results are MXU-exact; the
-Pallas path (ops/pallas) reformulates them as 128x128 block-diagonal matmuls
-for full MXU tiling.
+The FDCT is two 8x8 matmuls per block (`C @ X @ C.T`), folded with the
+zigzag into one [n,64]@[64,64] product. Every float32 product here pins
+Precision.HIGHEST: a GPU would otherwise be free to run it in TF32, which
+keeps about three decimal digits and moves quantized coefficients.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from jpgenc_tpu import tables as T
 from jpgenc_tpu.ref.encoder import dct_matrix
 
 _C = np.asarray(dct_matrix(np.float32))  # host constant, lifted at trace time
+_C64 = np.asarray(dct_matrix(np.float64))
 
 
 def blockify(plane: jnp.ndarray) -> jnp.ndarray:
@@ -54,16 +55,15 @@ def round_half_away(x: jnp.ndarray) -> jnp.ndarray:
 # [64, 64] fused FDCT+zigzag operator: column k of _KDCT_ZZ computes zigzag
 # coefficient k of the 2-D DCT from a row-major flattened 8x8 block, i.e.
 # vec(C @ X @ C.T)[ZZ[k]] = vec(X) @ kron(C, C).T[:, ZZ[k]]. One [n,64]@[64,64]
-# matmul replaces n pairs of 8x8 matmuls — the shape the MXU actually tiles.
+# matmul replaces n pairs of 8x8 matmuls.
 _KDCT_ZZ = np.kron(_C, _C).T[:, np.asarray(T.ZIGZAG)].astype(np.float32)
 
 
 def plane_to_zigzag(plane_f32: jnp.ndarray, qtable_nat: jnp.ndarray) -> jnp.ndarray:
     """Padded float32 plane -> [n_blocks, 64] int32 quantized zigzag coefficients.
 
-    This is the jnp form of Pallas kernel K1's pipeline (SURVEY.md call stack
-    4.1): level shift, FDCT, quantize, zigzag — fused into a single MXU matmul
-    with the quant reciprocal folded into the operator columns.
+    The transform stage K1 (SURVEY.md call stack 4.1): level shift, FDCT,
+    quantize, zigzag — one matmul, then the quantizer divide.
     """
     x = blockify(plane_f32).reshape(-1, 64) - jnp.float32(128.0)
     q_zz = qtable_nat.reshape(64).astype(jnp.float32)[jnp.asarray(T.ZIGZAG)]
@@ -74,9 +74,12 @@ def plane_to_zigzag(plane_f32: jnp.ndarray, qtable_nat: jnp.ndarray) -> jnp.ndar
 
 # [64, 64] fused dezigzag+IDCT operator (_KDCT_ZZ's inverse — kron(C, C) is
 # orthogonal): row k is the pixel-domain basis image of zigzag coefficient k,
-# so reconstruction is one [n,64]@[64,64] MXU matmul instead of a 64-lane
-# gather plus batched 8x8 einsums.
-_KIDCT_ZZ = np.kron(_C, _C)[np.asarray(T.ZIGZAG), :].astype(np.float32)
+# so reconstruction is one [n,64]@[64,64] matmul instead of a 64-lane
+# gather plus batched 8x8 einsums. Built in float64 and rounded once, so
+# the entries that are exact binary fractions (the DC row is 1/8) are exact:
+# a DC-only block then reconstructs to its exact sample value, and a
+# half-way sample rounds the same way here and in ref.decoder.
+_KIDCT_ZZ = np.kron(_C64, _C64)[np.asarray(T.ZIGZAG), :].astype(np.float32)
 
 
 def zigzag_to_plane(zz: jnp.ndarray, qtable_nat: jnp.ndarray,

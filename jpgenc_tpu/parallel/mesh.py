@@ -27,8 +27,6 @@ exercised on an N-virtual-device CPU mesh in CI (SURVEY.md section 5 item 7).
 """
 from __future__ import annotations
 
-from functools import lru_cache
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,8 +42,9 @@ from jpgenc_tpu.ops.pack import (seg_nwords_aligned, w_blk_for_quality,
 from jpgenc_tpu.huffman import build_codes, optimize_tables
 from jpgenc_tpu.layout import make_layout
 from jpgenc_tpu.ops.entropy import symbol_histogram
-from jpgenc_tpu.engine import (blocks_to_scan, pixels_to_blocks,
-                               pixels_to_scan_auto, scan_to_segments)
+from jpgenc_tpu.engine import (blocks_to_scan, pack_kernel_default,
+                               pixels_to_blocks, pixels_to_scan,
+                               scan_to_segments)
 from jpgenc_tpu.ref.encoder import standard_tables
 
 
@@ -101,14 +100,8 @@ def _local_rows(*arrays) -> dict[int, tuple]:
 
 def put_batch(arr: np.ndarray, sharding) -> jax.Array:
     """Batch-sharded host->device placement via one plain per-device
-    transfer per shard, assembled zero-copy.
-
-    `jax.device_put(arr, NamedSharding)` measures 4-20x slower than plain
-    per-device puts for >=50 MB transfers on this platform, and every byte
-    staged counts against a ~1.3 GB/process transfer pool that degrades
-    permanently once exhausted (docs/PERFORMANCE.md "host->device staging
-    pool"). Multi-host safe: each process uploads only its addressable
-    shards.
+    transfer per shard, assembled zero-copy. Multi-host safe: each process
+    uploads only its addressable shards.
     """
     idx_map = sharding.addressable_devices_indices_map(arr.shape)
     shards = [jax.device_put(np.ascontiguousarray(arr[idx]), d)
@@ -189,8 +182,7 @@ def _batched_fns(plan: DevicePlan, batch: int, mesh: Mesh,
     if hit is not None:
         return hit
     cap_u, w_blk = caps
-    from jpgenc_tpu.engine import use_pallas_default
-    use_pallas = use_pallas_default(list(mesh.devices.flat))
+    kernel = pack_kernel_default(list(mesh.devices.flat))
 
     lay = plan.layout
     wal = walign_for(lay.blocks_per_segment)
@@ -205,32 +197,17 @@ def _batched_fns(plan: DevicePlan, batch: int, mesh: Mesh,
         zz = blocks_to_scan(blocks, scan_flat)
         return scan_to_segments(zz, splan, luts, n_seg, words)
 
-    from jpgenc_tpu.ops.pallas.k1a_fused import k1a_applicable
-    fuse_k1a = use_pallas and k1a_applicable(lay, w_blk)
-
     def _enc1_bytes(img, qtabs, splan, scan_flat, luts):
-        if fuse_k1a:
-            # single-kernel pixels->packed-blocks (ops/pallas/k1a_fused.py)
-            from jpgenc_tpu.ops.pallas.block_pack import packed_tables
-            from jpgenc_tpu.ops.pallas.k1a_fused import fused_pixels_to_pack
-            from jpgenc_tpu.ops.pallas.seg_merge import fused_seg_merge
-            buf, bits = fused_pixels_to_pack(
-                img, lay, qtabs, packed_tables(luts), w_blk)
-            w, b = fused_seg_merge(buf, bits, n_seg, w_blk,
-                                   cap_words=cap_u // 4)
-            ovf = jnp.max(bits) > w_blk * 32
-        else:
-            zz = pixels_to_scan_auto(img, lay, qtabs, use_pallas)
-            w, b, ovf = scan_to_segments_blocked(zz, splan, luts, n_seg,
-                                                 w_blk, use_pallas=use_pallas,
-                                                 cap_words=cap_u // 4)
+        zz = pixels_to_scan(img, lay, qtabs)
+        w, b, ovf = scan_to_segments_blocked(zz, splan, luts, n_seg, w_blk,
+                                             kernel=kernel)
         return wcompact_unstuffed(w, b, cap_u // 4, wal) + (ovf,)
 
-    # optimize-mode pass 1 caches the SCAN-ORDERED zigzag tensor (Pallas K1
-    # on TPU): neither pass pays the raster->scan gather, and pass 2 feeds
-    # the fused entropy kernels directly (SURVEY.md call stack 4.3)
+    # optimize-mode pass 1 caches the SCAN-ORDERED zigzag tensor: neither
+    # pass pays the raster->scan gather, and pass 2 feeds the entropy stage
+    # directly (SURVEY.md call stack 4.3)
     def _zz1(img, qtabs):
-        return pixels_to_scan_auto(img, lay, qtabs, use_pallas)
+        return pixels_to_scan(img, lay, qtabs)
 
     def _zz1_islow(img, qtabs):
         # libjpeg-exact integer pipeline (conformance mode); scan_flat is a
@@ -243,8 +220,7 @@ def _batched_fns(plan: DevicePlan, batch: int, mesh: Mesh,
 
     def _entropy1_bytes(zz, splan, luts):
         w, b, ovf = scan_to_segments_blocked(zz, splan, luts, n_seg, w_blk,
-                                             use_pallas=use_pallas,
-                                             cap_words=cap_u // 4)
+                                             kernel=kernel)
         return wcompact_unstuffed(w, b, cap_u // 4, wal) + (ovf,)
 
     sh_blk = NamedSharding(mesh, P(ax, None, None))
@@ -611,8 +587,8 @@ def encode_striped(img: np.ndarray, n_stripes: int, quality: int = 75,
                      dct_method=dct_method)   # validate
     tail_zz = None
     if optimize:
-        # K1 + global histogram in one dispatch (psum over the stripe axis —
-        # ICI collective on TPU)
+        # transform + global histogram in one dispatch (a psum over the
+        # stripe axis)
         zz, freq_dev = (fns["zz_hist_islow_sum"] if islow
                         else fns["zz_hist_sum"])(stripes_dev, qt_dev,
                                                  plan.plan)
@@ -757,9 +733,8 @@ def decode_batch(datas: list[bytes], mesh: Mesh | None = None,
 
     from jpgenc_tpu.container.parser import parse_jpeg
     from jpgenc_tpu.decoder import (_densify, _densify_packed, _exc_cap,
-                                    _fused_mode, _pad_packed, _packed_wins,
-                                    _q_rows, _qts_of, _rows_from_pairs,
-                                    _scan_space_eidx, _sparse_cap,
+                                    _pad_packed, _packed_wins, _qts_of,
+                                    _rows_from_pairs, _sparse_cap,
                                     _sparse_wins, layout_from_parsed,
                                     pixel_fn, scan_packed, scan_pairs)
     from jpgenc_tpu.parallel import multihost
@@ -833,15 +808,10 @@ def decode_batch(datas: list[bytes], mesh: Mesh | None = None,
         ok = int(np.min(agg[..., 0]))
         nm, ne = int(np.max(agg[..., 1])), int(np.max(agg[..., 2]))
     form = None
-    fused_interp = False
     if ok:
         cap_m, cap_e = _sparse_cap(nm), _exc_cap(ne)
         if _packed_wins(cap_m, cap_e, n64):
-            # deterministic in (layout, mesh devices), so every process
-            # agrees without another collective
-            fused, fused_interp = _fused_mode(layout,
-                                              list(mesh.devices.flat))
-            form = "fused_packed" if fused else "packed"
+            form = "packed"
     if not form:
         # pairs fallback: reuse any already-decoded packed stream instead of
         # entropy-decoding its scan a second time; only frames whose packed
@@ -865,16 +835,13 @@ def decode_batch(datas: list[bytes], mesh: Mesh | None = None,
         form = "pairs" if _sparse_wins(cap, n64) else "dense"
 
     qt = np.zeros((B, n_comps, 64), np.int32)
-    if form in ("packed", "fused_packed"):
+    if form == "packed":
         mains = np.zeros((B, cap_m, 2), np.uint8)
         mains[..., 0] = 255                    # phantom pads for unowned rows
         excs = np.zeros((B, 3, cap_e), np.int16)
         excs[:, :2, :] = np.int16(-1)          # idx -1: dropped by scatter
         for i in owned:
             m_i, e_i, v_i = packed[i]
-            if form == "fused_packed":
-                # the fused kernel's scatter targets scan-position space
-                e_i = _scan_space_eidx(e_i, layout)
             mains[i], excs[i] = _pad_packed(m_i, e_i, v_i, cap_m, cap_e, n64)
         ins = (mains, excs)
         sh_in = (NamedSharding(mesh, P("batch", None, None)),) * 2
@@ -898,36 +865,12 @@ def decode_batch(datas: list[bytes], mesh: Mesh | None = None,
     sh_img = NamedSharding(
         mesh, P("batch", *([None] * (2 if layout.is_gray else 3))))
 
-    fkey = (layout.height, layout.width, layout.subsampling, mesh, B, form,
-            fused_interp)
+    fkey = (layout.height, layout.width, layout.subsampling, mesh, B, form)
     fn = _DEC_FNS.get(fkey)
     if fn is None:
         _pix = pixel_fn(layout)
 
-        if form == "fused_packed":
-            from jpgenc_tpu.ops.pallas.recon import fused_recon_rgb
-            c0 = layout.comps[0]
-            L = 64 if layout.is_gray else (c0.hs * c0.vs + 2) * 64
-            my, mx = layout.mcus_y, layout.mcus_x
-            n_scan64 = layout.n_scan * 64
-            interp = fused_interp
-
-            def _dec1(m1, e1, qt1):
-                # scan-position space IS the MCU-major kernel layout: the
-                # main scatter needs no scan-table lookup (add for pad-hop
-                # wrap safety, exceptions .set pre-mapped — decoder notes)
-                pos = jnp.cumsum(m1[:, 0].astype(jnp.int32)) - 1
-                val = jax.lax.bitcast_convert_type(
-                    m1[:, 1], jnp.int8).astype(jnp.int16)
-                flat = jnp.zeros((n_scan64,), jnp.int16)
-                flat = flat.at[pos].add(val, mode="drop")
-                eidx = (e1[0].astype(jnp.int32) & 0xFFFF) | \
-                    (e1[1].astype(jnp.int32) << 16)
-                flat = flat.at[eidx].set(e1[2], mode="drop")
-                x4 = flat.reshape(1, my, mx, L)
-                qr = _q_rows(layout, [qt1[i] for i in range(n_comps)])
-                return fused_recon_rgb(x4, qr, layout, interpret=interp)[0]
-        elif form == "packed":
+        if form == "packed":
             sf_ext = jnp.asarray(np.append(
                 np.asarray(layout.scan_flat, np.int64),
                 n_total).astype(np.int32))

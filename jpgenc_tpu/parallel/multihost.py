@@ -24,7 +24,7 @@ def initialize(coordinator_address: str | None = None,
     touch. Re-entry is guarded via the distributed client state instead.
 
     With explicit arguments this connects to (or hosts) the given coordinator.
-    With no arguments it attempts cluster auto-detection (TPU pod / GKE /
+    With no arguments it attempts cluster auto-detection (cluster managers /
     standard env vars); when auto-detection finds no cluster, the process
     stays single-process and this returns quietly.
     """

@@ -9,7 +9,7 @@ range limit is the r5 fuzz-audit finding: without it, ringing overshoot
 leaks through the (linear) upsample+color chain and decoded pixels drift
 from every oracle on sharp/noisy content.
 
-Oracle caveat (measured, docs/PERFORMANCE.md r5): libjpeg's integer islow
+Oracle caveat (measured in an earlier round): libjpeg's integer islow
 IDCT deviates from exact arithmetic by up to ~20/255 on coefficients
 outside its IEEE-1180 accuracy domain (|coef| <= ~300) — Pillow, OpenCV
 and TF agree with each other EXACTLY there because they share the code,

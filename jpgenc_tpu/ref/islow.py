@@ -1,7 +1,7 @@
 """Integer 'islow' transform pipeline — libjpeg-compatible fixed-point math.
 
 SURVEY.md §8 hard part 3 names full scan-byte parity with libjpeg as the
-stretch goal beyond the byte-exact-headers contract: the float MXU path
+stretch goal beyond the byte-exact-headers contract: the float matmul path
 cannot match libjpeg's scan bytes because jpeg_fdct_islow rounds at two
 fixed points mid-transform. This module re-derives that arithmetic from the
 classical Loeffler-Ligtenberg-Moshovitz factorization with libjpeg's

@@ -1,27 +1,22 @@
 #!/usr/bin/env python
-"""Flagship BASELINE.json:11 config at FULL scale (VERDICT r4 #2): 1024
-distinct 1080p frames through `batch.run_batch` on this chip, checkpoint
-manifest on, with a real SIGKILL + resume exercised mid-run, and an
-attested JSON artifact (committed as BATCH1024_r05.json).
+"""Flagship BASELINE.json:11 config at full scale: 1024 distinct 1080p
+frames from files through `batch.run_batch`, checkpoint manifest on, with
+a real SIGKILL + resume exercised mid-run. Prints one JSON object and,
+with --out, writes it to that file.
 
-Staging-pool-aware ordering: this box's host->device transfer pool
-(~1.3 GB/process, docs/PERFORMANCE.md) collapses PERMANENTLY once
-exhausted, and 1024 x 6.2 MB of pixels is ~6.4 GB — so the driver runs
-the batch as N sequential FRESH worker processes, each encoding a slice
-sized under the pool budget (~170 frames ≈ 1.05 GB) with its own
-checkpoint manifest. That is the production shape for this box exactly as
-the ledger prescribes; on real PCIe hosts one process would stream the
-whole set (batch.run_batch's double-buffered staging already does).
-
-The kill lane SIGKILLs one worker (exact PID — never a pattern kill) once
-its manifest shows progress, relaunches it, and asserts the relaunch
-skipped the finished images and completed the rest — the manifest
-resume contract at scale.
+The batch runs as sequential worker processes, one slice each with its own
+checkpoint manifest, so that one of them can be killed and relaunched: the
+kill lane SIGKILLs one worker (exact PID — never a pattern kill) once its
+manifest shows progress, relaunches it, and asserts the relaunch skipped
+the finished images and completed the rest — the manifest resume contract
+at scale. Only the workers use the device, one at a time; this parent
+process never imports JAX (the closing spot decode runs in a worker too).
 
 Usage:
-    python scripts/run_batch1024.py [--n 1024] [--root /tmp/batch1024]
-        [--slice-size 170] [--kill-slice 2] [--out BATCH1024_r05.json]
-    (worker mode is internal: --worker --i0 --i1 --manifest ...)
+    python scripts/run_batch1024.py [--n 1024] [--root DIR]
+        [--slice-size 160] [--kill-slice 2] [--out result.json]
+    (--root defaults to a fresh directory under the temp dir, $TMPDIR)
+    (worker modes are internal: --worker --i0 --i1 --manifest ..., --spot)
 """
 from __future__ import annotations
 
@@ -31,11 +26,9 @@ import os
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
@@ -81,6 +74,8 @@ def gen_inputs(root: str, n: int) -> float:
 
 
 def worker(root: str, i0: int, i1: int, manifest: str) -> None:
+    from jpgenc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     from jpgenc_tpu.batch import run_batch
     imgs = [_in_path(root, i) for i in range(i0, i1)]
     outs = [_out_path(root, i) for i in range(i0, i1)]
@@ -89,6 +84,29 @@ def worker(root: str, i0: int, i1: int, manifest: str) -> None:
                     chunk_size=16)
     print(json.dumps({"done": res.done, "skipped": res.skipped,
                       "mpix_per_s": round(res.mpix_per_s, 2)}), flush=True)
+
+
+def spot_decode(root: str, n: int) -> None:
+    """Worker mode: our decoder + Pillow agree on a spread of the emitted
+    files, and both reconstruct the source (the round-trip quality gate)."""
+    import io as _io
+
+    from PIL import Image
+
+    from jpgenc_tpu.api import decode
+    from jpgenc_tpu.utils.metrics import psnr
+    spots = []
+    for i in range(0, n, max(1, n // 8))[:8]:
+        with open(_out_path(root, i), "rb") as f:
+            d = f.read()
+        src = np.asarray(Image.open(_in_path(root, i)))
+        own = decode(d)
+        pil = np.asarray(Image.open(_io.BytesIO(d)).convert("RGB"))
+        spots.append({"i": i, "psnr_own": round(float(psnr(own, src)), 2),
+                      "psnr_pil": round(float(psnr(pil, src)), 2),
+                      "own_vs_pil_maxdiff": int(np.abs(
+                          own.astype(np.int16) - pil.astype(np.int16)).max())})
+    print(json.dumps(spots), flush=True)
 
 
 def _spawn(root, i0, i1, manifest):
@@ -110,22 +128,27 @@ def _manifest_lines(path):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--worker", action="store_true")
-    ap.add_argument("--root", default="/tmp/batch1024")
+    ap.add_argument("--spot", action="store_true")
+    ap.add_argument("--root", default="")
     ap.add_argument("--i0", type=int, default=0)
     ap.add_argument("--i1", type=int, default=0)
     ap.add_argument("--manifest", default="")
     ap.add_argument("--n", type=int, default=1024)
-    # default 160 = 10 whole 16-frame chunks (~1.0 GB staged, inside the
-    # pool) — keeping every chunk the same shape avoids a remainder-batch
-    # executable compile in each worker
+    # default 160 = 10 whole 16-frame chunks — keeping every chunk the same
+    # shape avoids a remainder-batch executable compile in each worker
     ap.add_argument("--slice-size", type=int, default=160)
     ap.add_argument("--kill-slice", type=int, default=2)
-    ap.add_argument("--out", default="BATCH1024_r05.json")
+    ap.add_argument("--out", default="")
     args = ap.parse_args()
 
     if args.worker:
         worker(args.root, args.i0, args.i1, args.manifest)
         return
+    if args.spot:
+        spot_decode(args.root, args.n)
+        return
+    if not args.root:
+        args.root = tempfile.mkdtemp(prefix="batch1024-")
 
     gen_s = gen_inputs(args.root, args.n)
     _log(f"inputs ready ({gen_s:.0f} s generation)")
@@ -196,25 +219,11 @@ def main() -> None:
     man_total = sum(_manifest_lines(os.path.join(
         args.root, f"manifest_{s}.jsonl")) for s in range(len(slices)))
 
-    # spot-decode parity: our decoder + Pillow agree on the emitted files,
-    # and both reconstruct the source (the round-trip quality gate)
-    import io as _io
-
-    from PIL import Image
-
-    from jpgenc_tpu.api import decode
-    from jpgenc_tpu.utils.metrics import psnr
-    spots = []
-    for i in range(0, args.n, max(1, args.n // 8))[:8]:
-        with open(_out_path(args.root, i), "rb") as f:
-            d = f.read()
-        src = np.asarray(Image.open(_in_path(args.root, i)))
-        own = decode(d)
-        pil = np.asarray(Image.open(_io.BytesIO(d)).convert("RGB"))
-        spots.append({"i": i, "psnr_own": round(float(psnr(own, src)), 2),
-                      "psnr_pil": round(float(psnr(pil, src)), 2),
-                      "own_vs_pil_maxdiff": int(np.abs(
-                          own.astype(np.int16) - pil.astype(np.int16)).max())})
+    spot = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--spot",
+         "--root", args.root, "--n", str(args.n)],
+        capture_output=True, text=True, check=True)
+    spots = json.loads(spot.stdout.strip().splitlines()[-1])
 
     result = {
         "config": "BASELINE.json:11 — 1024 x 1080p RGB 4:2:0 Q75 through "
@@ -225,10 +234,8 @@ def main() -> None:
         "mpix_per_s": round(args.n * H * W / 1e6 / wall, 2),
         "slices": len(slices),
         "slice_size": args.slice_size,
-        "pool_note": "fresh process per ~170-frame slice keeps every "
-                     "upload inside the ~1.3 GB/process staging pool "
-                     "(docs/PERFORMANCE.md); wall-clock includes the 5 "
-                     "worker process startups",
+        "process_note": "one worker process per slice; wall-clock "
+                        "includes every worker's start-up and compile",
         "kill_resume": kill_info,
         "integrity": {"files_missing": len(missing), "files_bad": bad,
                       "manifest_lines_total": man_total,
@@ -240,8 +247,9 @@ def main() -> None:
                       f"derivations -> {args.n} distinct PPM files on disk, "
                       f"loaded lazily per chunk (io.load)",
     }
-    with open(args.out, "w") as f:
-        json.dump(result, f, indent=1)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
     print(json.dumps(result))
 
 

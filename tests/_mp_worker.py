@@ -3,7 +3,7 @@
 Each process owns 4 virtual CPU devices (8 global). The sharded encode paths
 must produce byte-identical output to the single-device api paths, assembled
 per-process from addressable shards and exchanged over the Gloo/DCN control
-plane (SURVEY.md call stack 4.5; VERDICT r1 item 2).
+plane (SURVEY.md call stack 4.5).
 
 Usage: python tests/_mp_worker.py <process_id> <num_processes> <port>
 """

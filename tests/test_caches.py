@@ -78,3 +78,24 @@ def test_batched_cache_bounded(monkeypatch):
     M.encode_batch(a8, quality=75, mesh=mesh)      # evicts the 16x16 entry
     assert len(M._BATCHED) <= 1
     assert M.encode_batch(a16, quality=75, mesh=mesh) == ref
+
+
+def test_compile_cache_location(monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR wins and nothing else is set; without it
+    the cache goes to <checkout>/.jax_cache."""
+    import os
+
+    import jax
+
+    from jpgenc_tpu.utils import compile_cache as CC
+    calls = []
+    monkeypatch.setattr(jax.config, "update",
+                        lambda *a: calls.append(a))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere/cache")
+    assert CC.enable_compile_cache() == "/elsewhere/cache"
+    assert calls == []
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert CC.enable_compile_cache() == os.path.join(root, ".jax_cache")
+    assert calls == [("jax_compilation_cache_dir",
+                      os.path.join(root, ".jax_cache"))]

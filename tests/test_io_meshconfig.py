@@ -1,4 +1,4 @@
-"""io module, MeshConfig, and file-driven batch tests (VERDICT r1 item 10)."""
+"""io module, MeshConfig, and file-driven batch tests."""
 import json
 import os
 

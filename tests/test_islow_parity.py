@@ -215,7 +215,7 @@ def test_striped_islow_byte_parity_odd_dims():
     """encode_striped(dct_method='islow') on NON-MCU-aligned dims: the
     stripe layouts carry the true width (dummy-column rule) and the tail
     stripe re-encodes under its true-height layout (dummy-row chains), so
-    the file is byte-identical to libjpeg for all dims (VERDICT r3 #7)."""
+    the file is byte-identical to libjpeg for all dims."""
     from jpgenc_tpu.parallel.mesh import encode_striped
 
     # ragged color: 61 rows -> 4 MCU rows of 16 (3 stripes: 2+1+1 kept);

@@ -1,5 +1,5 @@
 """Large-image support: banded K1 (lax.scan over MCU-row bands) + 4K configs
-(VERDICT r1 items 3/5; BASELINE config :10; SURVEY §6 long-context analog).
+(BASELINE config :10; SURVEY §6 long-context analog).
 """
 import numpy as np
 import pytest

@@ -60,7 +60,7 @@ def test_dct_quantize_close_to_reference(gray_image):
     refb = ref.image_to_zigzag(gray_image, layout, list(qt_host))
     diff = np.abs(dev - refb)
     assert diff.max() <= 1                       # only rounding-boundary flips
-    # The fused [n,64]@[64,64] MXU formulation sums 64 f32 products at once
+    # The fused [n,64]@[64,64] matmul formulation sums 64 f32 products at once
     # (vs the reference's nested 8-term sums), so boundary flips are slightly
     # more frequent; T.81 A.3.4 leaves quantizer rounding to the encoder and
     # the round-trip bit-identity tests gate real correctness.

@@ -1,4 +1,4 @@
-"""Launch a REAL 2-process jax.distributed CPU job (VERDICT r1 item 2).
+"""Launch a REAL 2-process jax.distributed CPU job.
 
 Unlike the 8-virtual-device single-process sim, this exercises the actual
 multi-host code paths: jax.distributed.initialize, non-addressable global

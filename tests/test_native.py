@@ -345,3 +345,16 @@ class TestPackedDecode:
             finally:
                 native.available = orig
             np.testing.assert_array_equal(got, ref)
+
+
+def test_native_library_keyed_on_source_and_abi():
+    """The loaded library is the one built from this source (its file name
+    carries the source hash) and reports the ABI the bindings expect."""
+    import hashlib
+    import os
+    assert native.available()
+    with open(native._SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    assert os.path.basename(native._so_path()) == \
+        f"libscan_codec-{digest}.so"
+    assert native.LIB.scan_codec_abi() == native.ABI_VERSION

@@ -1,4 +1,4 @@
-"""Decoder robustness + encode fallback-chain tests (VERDICT r1 items 8/9).
+"""Decoder robustness + encode fallback-chain tests.
 
 The decoder must fail with a clean ValueError — never KeyError/IndexError/
 segfault — on truncated, bit-flipped, or structurally foreign baseline files,
@@ -98,7 +98,7 @@ class TestForeignFiles:
                                                    monkeypatch):
         """A legal baseline file using Huffman table ids 2/3 (T.81 allows
         Th 0-3) must decode through the NATIVE decoder, not the ~1000x
-        slower pure-Python per-bit reader (VERDICT r3 next #6). The Python
+        slower pure-Python per-bit reader. The Python
         fallback always builds per-bit LUTs via _decode_lut, so poisoning
         it proves the native path handled the scan."""
         from jpgenc_tpu import native
